@@ -25,6 +25,12 @@ def main():
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
 
+    from fem_elastoplasticity_tpu.utils.compile_cache import (
+        enable_compile_cache,
+    )
+
+    enable_compile_cache()
+
     from fem_elastoplasticity_tpu.models.config import ElasticityConfig
     from fem_elastoplasticity_tpu.models.elasticity import solve
     from fem_elastoplasticity_tpu.ops.elements import ElementType

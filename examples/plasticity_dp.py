@@ -41,6 +41,12 @@ def main():
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
 
+    from fem_elastoplasticity_tpu.utils.compile_cache import (
+        enable_compile_cache,
+    )
+
+    enable_compile_cache()
+
     import numpy as np
 
     from fem_elastoplasticity_tpu.models.config import FootingConfig

@@ -1,15 +1,15 @@
 """TSX tunnel excavation (Drucker-Prager, unstructured mesh).
 
 Drop-in analog of the reference driver `tsx-tunnel/sandbox.py`
-(`elasticity_fem(P4, level=1)`), plus the TPU-native extras: the f32
-fast path, multi-chip sharding and mesh refinement.
+(`elasticity_fem(P4, level=1)`), plus the extras: the f32 / df32 fast
+paths, multi-device sharding and mesh refinement.
 
     python examples/tsx_tunnel.py --etype P1 --draw
     python examples/tsx_tunnel.py --etype P4 --solver cg
     python examples/tsx_tunnel.py --fast            # df32 fast path
     python examples/tsx_tunnel.py --fast --solver mg --refine 3   # 57k DOFs
     python examples/tsx_tunnel.py --support 2.0     # 2 MPa tunnel support
-    python examples/tsx_tunnel.py --devices 8       # shard_map over 8 chips
+    python examples/tsx_tunnel.py --devices 4       # shard_map over 4 GPUs
 """
 import argparse
 import pathlib
@@ -37,6 +37,12 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+
+    from fem_elastoplasticity_tpu.utils.compile_cache import (
+        enable_compile_cache,
+    )
+
+    enable_compile_cache()
 
     import numpy as np
 

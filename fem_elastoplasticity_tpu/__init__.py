@@ -1,16 +1,16 @@
-"""fem_elastoplasticity_tpu — a TPU-native 2D FEM elastoplasticity framework.
+"""fem_elastoplasticity_tpu — a 2D FEM elastoplasticity framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 MartinBeseda/FEM-ElastoPlasticity (plane-strain linear elasticity and
 Drucker-Prager elastoplasticity with load-stepped semi-smooth Newton):
 
 * element-batched assembly (einsum + segment_sum) instead of scipy sparse,
-* branchless Drucker-Prager return mapping (+ fused Pallas kernel),
+* branchless Drucker-Prager return mapping,
 * the entire load-stepping Newton loop under one `jit`
   (`lax.while_loop`, no host round-trips),
 * matrix-free preconditioned CG for large meshes, masked dense
   Cholesky/LU for reference-parity on small ones,
-* `shard_map` element partitioning across TPU meshes and `vmap`
+* `shard_map` element / operator-row partitioning across devices and `vmap`
   material-parameter ensembles.
 """
 from .utils.precision import enable_x64 as _enable_x64

@@ -1,6 +1,6 @@
 """Benchmark / cross-validation harnesses.
 
-TPU-native analog of the reference's MATLAB-engine comparison script
+Analog of the reference's MATLAB-engine comparison script
 (`Elasticity2D/comparison_assembly_P1_2D_elasticity.py`): refinement-level
 assembly sweeps, full-solve scaling sweeps, and material ensembles, all
 self-contained (the in-repo oracle is the golden-file + anchor test suite

@@ -4,7 +4,7 @@ Parity target: `Elasticity2D/pythonFEM.py:1052-1179`.  Behavioral anchors
 (BASELINE.md, measured from the reference): stored energy
 P1 L1 = 2786.3472189077, P1 L2 = 2717.5492666201, Q2 L1 = 2642.1861301492.
 
-TPU design: geometry precompute + element stiffness + dense-free assembly +
+Design: geometry precompute + element stiffness + dense-free assembly +
 Cholesky solve all inside one `jit`; the stored energy uses the matrix-free
 operator, so the full K never exists.
 """

@@ -1,18 +1,19 @@
 """Element-batched assembly kernels (the hot path) — lane-major layout.
 
-TPU-native redesign of the reference's scipy-sparse assembly
+Redesign of the reference's scipy-sparse assembly
 (`Elasticity2D/pythonFEM.py:368-477`).  Instead of a global sparse
 strain-displacement matrix and sparse GEMMs, we keep per-integration-point
 dense tensors in **structure-of-arrays, lane-major** layout — the minor
 (lane) dimension is always the integration-point axis, padded to a multiple
-of the TPU lane tile, so every elementwise op runs at full VPU width:
+of 128, so every elementwise op streams contiguous memory at full vector
+width:
 
     B       (3, 2*n_p, n_int)   strain-displacement blocks
     weight  (n_int,)            |det J| * w_q
     edofs_t (2*n_p, n_e)        global DOF indices (2*node + component)
 
-(A (n_int, 4)-major layout uses 4/128 lanes per vector register and was
-measured ~100x slower on v5e.)  All contractions over the tiny Voigt /
+(An (n_int, 4)-major layout would put the tiny Voigt axis in the minor
+dimension and stride every access.)  All contractions over the tiny Voigt /
 local-node axes are unrolled broadcasts (vector FMAs over lanes); the only
 irregular ops are one gather (DOF values) and one `segment_sum` scatter
 (nodal accumulation) per operator application.
@@ -33,7 +34,7 @@ import numpy as np
 
 from .elements import ReferenceElement, SurfaceElement
 
-LANE_PAD = 128  # pad element count so n_int fills TPU vector lanes
+LANE_PAD = 128  # pad element count so n_int is a multiple of 128
 
 
 class Geometry(NamedTuple):
@@ -184,7 +185,7 @@ def internal_force(
       s3: (3, n_int) stress (first three Voigt components).
       axis_name: if set, `geom` holds this device's element shard and the
         scattered nodal partials are `psum`-reduced over the named mesh
-        axis (SPMD assembly: element-local work + one ICI collective).
+        axis (SPMD assembly: element-local work + one collective).
     Parity: `tsx-tunnel/pythonFEM.py:1778`.
     """
     ws = geom.weight[None, :] * s3  # (3, n_int)
@@ -292,12 +293,11 @@ def assemble_dense_free(
 def assemble_dense_free_mxu(
     ke: jnp.ndarray, geom: Geometry, fmap: jnp.ndarray, n_free: int
 ) -> jnp.ndarray:
-    """Dense free-DOF stiffness via one-hot matmuls (MXU path, no scatter).
+    """Dense free-DOF stiffness via one-hot matmuls (no scatter).
 
     K = S (blockdiag K_e) S^T with S the one-hot slot->free-DOF matrix,
-    evaluated as a batched element matmul plus one large matmul.  TPU
-    scatters serialize on duplicate indices; this trades them for
-    MXU-friendly GEMMs.  Memory O(n_free * n_e * 2n_p) — intended for the
+    evaluated as a batched element matmul plus one large matmul: the
+    scatter's duplicate-index accumulation becomes dense GEMMs.  Memory O(n_free * n_e * 2n_p) — intended for the
     small/medium parity meshes (use CG beyond).
     """
     fd = fmap[geom.edofs]  # (n_e, 2*n_p)
@@ -441,18 +441,15 @@ def plastic_slots(ind_p: jnp.ndarray, p_max: int):
     K_tangent = K_elastic + a correction supported on the plastic points
     only — a sub-percent fraction of the mesh in the tsx/footing problems
     (379 of 56.8k at level 3).  This lets the CG operator run on the
-    assembled elastic Pallas matvec (`ops/spmv.py`) plus a tiny
-    gather/scatter correction instead of the serialized full-mesh
-    matrix-free path.
+    assembled elastic matvec (`ops/spmv.py`) plus a tiny gather/scatter
+    correction instead of the full-mesh matrix-free path.
 
     The compaction is scatter-free AND sort-free: a prefix sum over the
     mask plus `searchsorted` for the slot positions (slot s holds the
     index of the (s+1)-th plastic point, ascending).  The earlier
     `lax.top_k` implementation had identical semantics (ties prefer the
-    lower index) but its TPU lowering scales ~O(n_int * p_max) — profiled
-    at ~40 ms per Newton iteration at 227k points / cap 3548, the single
-    largest per-iteration cost at scale; cumsum+searchsorted is
-    O(n_int + p_max * log n_int) batched gathers (<1 ms there).  Returns
+    lower index) but costs ~O(n_int * p_max); cumsum+searchsorted is
+    O(n_int + p_max * log n_int) batched gathers.  Returns
     (idx (p_max,) i32, valid (p_max,) bool).  If more than p_max points
     are plastic, the overflow is dropped: the CG operator then applies an
     inexact (still symmetric) tangent — Newton's residual is exact, so
@@ -499,10 +496,9 @@ def plastic_correction_apply(
     the slot set: gather v at the slots' element DOFs, strain, apply the
     tangent deviation, scatter B^T back.
 
-    This runs once per CG iteration, and XLA:TPU serializes gather/
-    scatter per *index* — so both ends move (x, y) node PAIRS (edofs are
-    interleaved 2*node+comp, `element_dofs`): half the indices of the
-    flat-DOF form for the same bytes.  Per-segment contribution order is
+    This runs once per CG iteration, so both ends move (x, y) node PAIRS
+    (edofs are interleaved 2*node+comp, `element_dofs`): half the indices
+    of the flat-DOF form for the same bytes.  Per-segment contribution order is
     unchanged (k-major, slot-minor), so results are bit-identical.
     """
     n2p, P = edp.shape

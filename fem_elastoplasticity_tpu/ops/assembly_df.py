@@ -1,6 +1,6 @@
 """Double-float (two-f32) residual assembly — the fast-path accuracy core.
 
-The TPU fast path runs every hot op in f32/Pallas hardware, but the
+The fast path runs every hot op in f32, but the
 reference's Newton stopping criteria (1e-12 inner / 1e-10 accept,
 `tsx-tunnel/pythonFEM.py:1801-1804`) and the <=1e-10 displacement-accuracy
 bar are unreachable in plain f32: at convergence the internal force is a
@@ -15,7 +15,7 @@ Key design point: the nodal accumulation cannot use `segment_sum` (there is
 no compensated segmented reduction); instead a **padded gather map** is
 precomputed on the host — for each DOF, the fixed list of per-element force
 slots that touch it — and the reduction is an unrolled `df_add` chain over
-that static axis.  This is also scatter-free, which TPUs like.
+that static axis (scatter-free as well).
 
 Geometry (B blocks, quadrature weights) is computed once on the host in
 f64 and split exactly into hi/lo pairs, so the residual's backward error is
@@ -240,11 +240,9 @@ def refine_elastic_solve_with(
     accuracy, so a handful of passes reach the ~1e-14 df32 floor.
 
     `apply_fn(u: DF) -> DF`: override for the df32 elastic application
-    K_el u.  Default = the matrix-free `elastic_apply_df` (serialized
-    gather path); callers with assembled G/S residual operators pass
-    `elastic_apply_slot_df` instead — the predictor was measured at ~40%
-    of the level-4 full-solve wall on the matrix-free path (BENCH_NOTES
-    round 3).
+    K_el u.  Default = the matrix-free `elastic_apply_df` (gather/scatter
+    path); callers with assembled G/S residual operators pass
+    `elastic_apply_slot_df` instead.
     """
     if apply_fn is None:
         apply_fn = lambda u: DF(*elastic_apply_df(g, u, shear, bulk))

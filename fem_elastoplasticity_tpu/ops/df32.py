@@ -1,7 +1,6 @@
 """Double-float (two-f32) arithmetic building blocks.
 
-TPU hardware has no f64 ALUs (XLA emulates f64 ~10x slower and Mosaic/
-Pallas has no f64 at all).  Double-float arithmetic represents a value as
+Double-float arithmetic represents a value as
 an unevaluated sum `hi + lo` of two f32s (~48-bit effective mantissa,
 ~1e-14 relative), using error-free transformations:
 
@@ -9,8 +8,8 @@ an unevaluated sum `hi + lo` of two f32s (~48-bit effective mantissa,
   * split/two_prod (Dekker) — exact a * b = p + e without FMA,
   * df_* — double-float add/sub/mul/div/sqrt built on them.
 
-These functions are pure jnp elementwise ops, valid inside Pallas kernels
-(f32 only) and under jit on any backend.  They are the substrate for the
+These functions are pure jnp elementwise ops, valid under jit on any
+backend.  They are the substrate for the
 ROADMAP double-f32 residual path: Newton residuals/criteria at ~1e-14
 relative accuracy computed entirely in f32 hardware.
 
@@ -88,7 +87,7 @@ def df_barrier(a: DF) -> DF:
     pipeline (12 before optimization -> 0 after), so on that backend this
     does NOT reliably protect EFTs — `df_pin` with a runtime-zeros
     argument is the load-bearing guard; this barrier remains as free
-    insurance for backends that honor it (TPU).
+    insurance for backends that honor it.
     """
     hi, lo = jax.lax.optimization_barrier((a.hi, a.lo))
     return DF(hi, lo)
@@ -159,6 +158,23 @@ def two_prod(a, b):
     return p, e
 
 
+def cross_sum(a, b, c, d):
+    """a*b + c*d for the low-order cross terms of a double-float product.
+
+    Each product goes through `two_prod`, so it has more than one use and
+    no single-use product feeds an add.  A compiler may contract such a
+    pair into a fused multiply-add depending on which consumers share the
+    fused kernel (XLA:CPU via LLVM does), so a plain `a*b + c*d` can round
+    differently in two programs that evaluate the same expression — the
+    single-device and the row-sharded solves.  Here every rounding is
+    fixed by the expression alone (the two_prod partial products are
+    exact, so contracting them changes nothing).
+    """
+    p1, e1 = two_prod(a, b)
+    p2, e2 = two_prod(c, d)
+    return (p1 + p2) + (e1 + e2)
+
+
 def df_add(a: DF, b: DF) -> DF:
     s, e = two_sum(a.hi, b.hi)
     e = e + a.lo + b.lo
@@ -176,7 +192,7 @@ def df_sub(a: DF, b: DF) -> DF:
 
 def df_mul(a: DF, b: DF) -> DF:
     p, e = two_prod(a.hi, b.hi)
-    e = e + a.hi * b.lo + a.lo * b.hi
+    e = e + cross_sum(a.hi, b.lo, a.lo, b.hi)
     hi, lo = fast_two_sum(p, e)
     return DF(hi, lo)
 
@@ -204,7 +220,8 @@ def df_div(a: DF, b: DF) -> DF:
     # r = a - q1*b (double-float)
     p, e = two_prod(q1, b.hi)
     r_hi, r_e = two_sum(a.hi, -p)
-    r = r_hi + (r_e + a.lo - e - q1 * b.lo)
+    p1, e1 = two_prod(q1, b.lo)  # contraction-proof, see cross_sum
+    r = r_hi + (r_e + a.lo - e - (p1 + e1))
     q2 = r / b.hi
     hi, lo = fast_two_sum(q1, q2)
     return DF(hi, lo)
@@ -223,13 +240,36 @@ def df_sqrt(a: DF) -> DF:
     return DF(hi, lo)
 
 
+def materialize(tree):
+    """Compute every array leaf of `tree` once, in a kernel of its own.
+
+    An identity scatter, which XLA fuses into no consumer: without it a
+    long elementwise producer (the return map) is fused into each of its
+    consumers — recomputed per gathered element inside the force
+    operator's gather — and on XLA:CPU the copies may contract products
+    differently (`cross_sum`), so two programs stop agreeing bitwise.
+    """
+
+    def one(x):
+        flat = x.reshape(-1)
+        idx = jnp.arange(flat.size)
+        return (
+            jnp.zeros_like(flat)
+            .at[idx]
+            .set(flat, unique_indices=True, indices_are_sorted=True)
+            .reshape(x.shape)
+        )
+
+    return jax.tree.map(one, tree)
+
+
 def df_allreduce(a: DF, axis_name: str) -> DF:
     """Exact all-reduce of compensated per-shard partials (shard_map).
 
     A plain `psum` of the hi and lo members separately would drop the
     carries of the hi additions (~eps32 * |sum| — fatal to the ~1e-14
     df32 floor).  Instead the (hi, lo) pairs are all-gathered over the
-    mesh axis (one ICI collective each) and folded with the compensated
+    mesh axis (one collective each) and folded with the compensated
     `df_add` over the static shard axis, so the reduction is itself a
     double-float computation.  Every shard computes the identical fold —
     the result is replicated, like `psum`.

@@ -5,7 +5,7 @@ largest tsx-tunnel mesh, shared assembly structure".  The geometry tables
 (B, weights, DOF maps) are computed once and shared; the entire adaptive
 load-stepped Newton solve — return mapping, assembly, linear solves,
 adaptive d_zeta control — is batched with `vmap`, so XLA fuses the member
-solves into batched kernels (batched LU / batched einsum on the MXU).
+solves into batched kernels (batched LU / batched einsum).
 
 Each ensemble member follows its *own* adaptive schedule; `vmap` of
 `lax.while_loop` keeps iterating until every member is done, masking
@@ -160,7 +160,7 @@ def solve_tsx_ensemble_df32(
     enter as vmapped DF arguments (`materials_df.consts_host`).
 
     `shard_devices`: additionally shard the member axis over a 1D device
-    mesh (SURVEY.md §2.4 "64-way ... on v5e-8").  Members are independent,
+    mesh (SURVEY.md §2.4 "64-way" ensembles).  Members are independent,
     so the program needs no collectives: each device vmaps over its local
     member slice with the shared geometry replicated, and per-member
     results concatenate back along the member axis.  Member count is
@@ -179,7 +179,7 @@ def solve_tsx_ensemble_df32(
     assert cfg.precision == "df32" and cfg.solver in ("dense", "cg"), (
         "df32 ensemble supports the dense parity mesh (solver='dense') "
         "and refined meshes via matrix-free PCG (solver='cg', "
-        "refine_levels >= 1 — VERDICT r4 #5 ensemble-at-scale)"
+        "refine_levels >= 1 — ensemble-at-scale)"
     )
     key = ("df32", cfg, shard_devices)
     etas = np.asarray(etas, np.float64)
@@ -301,7 +301,7 @@ def solve_tsx_ensemble_df32(
                     # under vmap the plastic/elastic cond becomes a select
                     # (both branches run for every member), so the Woodbury
                     # solve replaces 64 batched O(n^3) assembly+factor
-                    # passes per Newton iteration with batched MXU matmuls
+                    # passes per Newton iteration with batched matmuls
                     # against the SHARED elastic inverse (members differ
                     # only in cohesion/friction, not elastic moduli)
                     # generous cap; fallback disabled: under vmap the
@@ -334,17 +334,12 @@ def solve_tsx_ensemble_df32(
             # PartitionSpec prefix shards them all.  No collectives appear
             # in the program — members never communicate.
             from jax import shard_map as _shard_map
-            from jax.experimental import mesh_utils
-            from jax.sharding import Mesh as DeviceMesh
             from jax.sharding import PartitionSpec as SpecP
 
+            from .sharding import make_device_mesh
+
             n_dev = int(shard_devices)
-            devs = jax.devices()
-            assert len(devs) >= n_dev, (len(devs), n_dev)
-            dev_mesh = DeviceMesh(
-                mesh_utils.create_device_mesh((n_dev,), devices=devs[:n_dev]),
-                ("members",),
-            )
+            dev_mesh = make_device_mesh(n_dev, "members")
             run = jax.jit(
                 _shard_map(
                     _run_impl, mesh=dev_mesh,

@@ -5,7 +5,7 @@ and the ring-basis harvest (`deflation_harvest`) — the machinery behind
 `FootingConfig.cg_deflate` (solve/newton.py).  The model problem is an
 SPD matrix with an isolated small-eigenvalue cluster, the f32 analog of
 the footing's near-limit tangent spectra (localized shear-band modes —
-BENCH_NOTES round 4): plain PCG stalls on the cluster, a deflation
+ROADMAP findings): plain PCG stalls on the cluster, a deflation
 basis spanning it removes the slow tail.
 
 The A-DEF2 formulation is load-bearing: the textbook DEF1 variant
@@ -173,10 +173,10 @@ class TestDeflationIntegration:
     gaps ADVICE r4 flagged: the machinery was unit-tested only)."""
 
     @pytest.mark.skipif(
-        "FEM_TPU_SLOW" not in __import__("os").environ,
+        "FEM_SLOW" not in __import__("os").environ,
         reason="two full footing schedules (~2 min solo; the truncated "
         "checkpoint/sharded tests below cover the deflated Newton path "
-        "on every run) — set FEM_TPU_SLOW=1",
+        "on every run) — set FEM_SLOW=1",
     )
     def test_footing_newton_deflated_cuts_cg_work(self):
         """`FootingConfig(cg_deflate=k)` through the REAL footing Newton
@@ -250,10 +250,10 @@ class TestDeflationIntegration:
         np.testing.assert_array_equal(f64(r8.u), f64(r1.u))
 
     @pytest.mark.skipif(
-        "FEM_TPU_SLOW" not in __import__("os").environ,
+        "FEM_SLOW" not in __import__("os").environ,
         reason="8-device tsx fast_scale compile is heavy on the 1-core "
         "suite box; the footing sharded-deflated case covers the "
-        "out_specs defl contract every run — set FEM_TPU_SLOW=1",
+        "out_specs defl contract every run — set FEM_SLOW=1",
     )
     def test_sharded_tsx_deflated_traces_and_runs(self):
         """TsxTunnelConfig.cg_deflate>0 through solve_sharded_scale: the

@@ -83,8 +83,8 @@ class TestAnchors:
         still cut the preconditioned residual 100x counts as an
         inexact-Newton step instead of divergence.  Under a tight
         iteration cap the strict policy collapses d_zeta at the very
-        first load step (the round-3 footing L4 fragmentation, VERDICT
-        r3 #2); the relaxed policy completes the same truncated ramp
+        first load step (the footing L4 fragmentation); the relaxed
+        policy completes the same truncated ramp
         with the reference pressure."""
         ref = solve(FootingConfig.fast(solver="cg", zeta_max=0.1))
         strict = solve(
@@ -245,7 +245,7 @@ class TestFastPath:
     )
     def test_assembled_quads_match_cg(self, etype, level):
         """Quad elements run the assembled full-tangent scale path too
-        (VERDICT r3 #10): the slot operator build, the corr_full scatter
+       : the slot operator build, the corr_full scatter
         table and the G/S residual operators are element-type generic.
         Truncated ramp; the adaptive schedules may fork at sharp
         controller branches (f32 operator rounding), so the check is
@@ -268,7 +268,7 @@ class TestFastPath:
         """The generic chunked executor (solve/chunked.py) drives the
         footing df32 solve: an interrupted checkpointed run resumes
         bit-identically to the single-dispatch result (mirrors the tsx
-        test — VERDICT r2 #8: chunked execution is model-generic now)."""
+        test: chunked execution is model-generic)."""
         from fem_elastoplasticity_tpu.models import footing as ftg
 
         cfg = FootingConfig.fast()
@@ -288,9 +288,9 @@ class TestFastPath:
         np.testing.assert_array_equal(f64(r2.u), f64(full.u))
 
     @pytest.mark.skipif(
-        "FEM_TPU_SLOW" not in __import__("os").environ,
+        "FEM_SLOW" not in __import__("os").environ,
         reason="tangent-MG footing runs minutes on the CPU mesh "
-        "(set FEM_TPU_SLOW=1)",
+        "(set FEM_SLOW=1)",
     )
     def test_tangent_mg_matches_cg_truncated(self):
         """TRUE tangent multigrid (solve/multigrid.py tangent_vcycle):
@@ -304,7 +304,7 @@ class TestFastPath:
         cap-as-divergence, which fragmented the schedule onto easier
         sub-steps; with cap-relax the mix includes the hard near-limit
         solves and the measured ratio is ~0.64 — the stressed-tangent
-        analysis in BENCH_NOTES round 4.)"""
+        analysis in the ROADMAP findings.)"""
         kw = dict(solver="cg", level=2, zeta_max=0.2, cg_maxiter=4000)
         r_cg = solve(FootingConfig.fast(**kw))
         r_t = solve(FootingConfig.fast(tangent_mg=True, **kw))

@@ -1,6 +1,7 @@
-"""Windowed-ELL sparse operator tests (ops/spmv.py).
+"""Assembled sparse operator tests (ops/spmv.py).
 
-Runs the Pallas kernel in interpret mode on the CPU mesh; correctness is
+Every layout (windowed ELL, dense and ragged slot, their double-float
+forms, the bf16 smoother stream) is applied in plain XLA; correctness is
 checked against scipy CSR and the matrix-free `tangent_matvec`.
 """
 import numpy as np
@@ -355,7 +356,7 @@ def test_slot_hierarchy_vcycle_preconditions_cg():
 
 
 # ---------------------------------------------------------------------------
-# double-float slot kernel (build_slot_df / slot_matvec_df)
+# double-float slot operator (build_slot_df / slot_matvec_df)
 # ---------------------------------------------------------------------------
 def _df_split(x64):
     hi = x64.astype(np.float32)
@@ -482,7 +483,7 @@ def test_slot_matvec_high_dup_rows():
 
 
 def test_ell_matvec_df_f64_grade(tsx_rcm):
-    """Windowed-ELL double-float kernel reaches ~1e-14 vs host f64,
+    """Windowed-ELL double-float matvec reaches ~1e-14 vs host f64,
     including the exact (row-compacted) slot-df overflow side path."""
     coords2, elems2, free2, _ = tsx_rcm
     ref = volume_element(ElementType.P1)
@@ -570,9 +571,9 @@ def test_slot_matvec_trailing_empty_rows():
 
 
 def test_slot_sweep_matches_unfused():
-    """Fused smoother sweep == matvec + mask + 2x2 block einsum + update.
+    """Smoother sweep == matvec + mask + 2x2 block einsum + update.
 
-    The fused kernel reorders one addition in the odd component (msf*res
+    The sweep reorders one addition in the odd component (msf*res
     + mpr*res_pair vs the einsum's row dot), so agreement is to f32
     roundoff, not bitwise.
     """
@@ -621,9 +622,9 @@ def test_slot_sweep_matches_unfused():
 
 
 def test_packed_slot_matches_bf16_rounded():
-    """Packed (2xbf16/u32 vals, 4xu8/i32 cidx) kernels == the f32 slot
-    kernels run on bf16-rounded values — bitwise: the packed kernels do
-    the identical f32 arithmetic in the identical order, only the
+    """The bf16-value / u8-index smoother stream == the f32 slot operator
+    run on bf16-rounded values — bitwise: the values are upcast in the
+    gather, so the f32 arithmetic and its order are identical; only the
     operator STREAM is stored narrower (ops/spmv.py pack_slot_bf16)."""
     import scipy.sparse as sp
 
@@ -636,6 +637,7 @@ def test_packed_slot_matches_bf16_rounded():
     Kb = spmv.apply_bc_csr(K.copy(), free)
     arrays, meta = spmv.build_slot(Kb)
     pk = spmv.pack_slot_bf16(arrays, meta)
+    assert pk["vals"].dtype == jnp.bfloat16 and pk["cidx"].dtype == jnp.uint8
 
     # reference arrays: values rounded to bf16 (the packing's only loss)
     u = np.asarray(arrays["vals"], np.float32).view(np.uint32)
@@ -644,12 +646,12 @@ def test_packed_slot_matches_bf16_rounded():
 
     v = jnp.asarray(rng.standard_normal(n), jnp.float32)
     np.testing.assert_array_equal(
-        np.asarray(spmv.slot_matvec_pk(pk, meta, v)),
+        np.asarray(spmv.slot_matvec(pk, meta, v)),
         np.asarray(spmv.slot_matvec(arrays_bf, meta, v)),
     )
     # bf16 rounding itself is small: packed matvec ~3e-3-relative of f32
     y32 = np.asarray(spmv.slot_matvec(arrays, meta, v))
-    ypk = np.asarray(spmv.slot_matvec_pk(pk, meta, v))
+    ypk = np.asarray(spmv.slot_matvec(pk, meta, v))
     assert np.abs(ypk - y32).max() <= 4e-3 * np.abs(y32).max()
 
     inv = rng.standard_normal((n_n, 2, 2)).astype(np.float32)
@@ -658,7 +660,7 @@ def test_packed_slot_matches_bf16_rounded():
     r2 = spmv.pad_rhs(jnp.asarray(rng.standard_normal(n), jnp.float32), meta)
     for update in (True, False):
         np.testing.assert_array_equal(
-            np.asarray(spmv.slot_sweep_pk(pk, meta, aux, z, r2, update)),
+            np.asarray(spmv.slot_sweep(pk, meta, aux, z, r2, update)),
             np.asarray(spmv.slot_sweep(arrays_bf, meta, aux, z, r2, update)),
         )
 
@@ -710,6 +712,44 @@ def test_packed_hierarchy_vcycle_preconditions_cg():
     assert np.abs(sols[True] - sols[False]).max() <= 1e-4 * scale
 
 
+def test_packed_hierarchy_shards_bit_identically():
+    """A hierarchy carrying the bf16 smoother stream row-shards with it:
+    the V-cycle under shard_map on 4 devices equals the single-device
+    V-cycle bitwise (the stream shares the operator's slot layout)."""
+    from jax import shard_map
+    from jax.sharding import PartitionSpec as P
+
+    from fem_elastoplasticity_tpu.ops.elements import volume_element
+    from fem_elastoplasticity_tpu.parallel.sharding import make_device_mesh
+
+    if len(jax.devices()) < 4:
+        pytest.skip("needs 4 devices")
+    raw = np.load(_DATA)
+    arrays, metas, _, coarse = mg.build_hierarchy_ell(
+        raw["coords"].astype(np.float64), raw["elems"], 1, _free_fn,
+        3.0e3, 5.0e3, volume_element(ElementType.P1), fmt="slot",
+        pack_bf16=True,
+    )
+    top = len(metas) - 1
+    assert "opk" in arrays[top]
+    idx0, inv0 = coarse["free_idx0"], coarse["inv0"]
+    coarse_fn = lambda r: jnp.zeros_like(r).at[idx0].set(inv0 @ r[idx0])
+    r = jnp.asarray(
+        np.random.default_rng(2).standard_normal(metas[top]["op"].n2),
+        jnp.float32,
+    )
+    vc1 = mg.make_vcycle_ell(metas, coarse_fn, nu=2)
+    z1 = jax.jit(vc1)(arrays, r)
+    a4, m4, s4 = mg.shard_hierarchy_ell(arrays, metas, 4)
+    assert "opk" in a4[top]
+    vc4 = mg.make_vcycle_ell(m4, coarse_fn, nu=2)
+    z4 = jax.jit(shard_map(
+        vc4, mesh=make_device_mesh(4, spmv.OP_AXIS), in_specs=(s4, P()),
+        out_specs=P(), check_vma=False,
+    ))(a4, r)
+    np.testing.assert_array_equal(np.asarray(z4), np.asarray(z1))
+
+
 def _skewed_spd(rng, n_n=4096, n_tail=4):
     """SPD CSR whose slot layout is genuinely skewed: a banded bulk plus
     a few near-dense rows confined to ONE superblock, so that block's
@@ -729,9 +769,10 @@ def _skewed_spd(rng, n_n=4096, n_tail=4):
 
 
 def test_ragged_slot_matches_dense():
-    """fmt="rslot" (chunk-compacted stream, scalar-prefetch grid with
-    output-block revisiting) == the dense slot kernel, on an operator
-    skewed enough that chunking actually activates (meta.n_ch > 0)."""
+    """fmt="rslot" (chunk-compacted stream, chunk partials folded into
+    their superblocks by a segment sum) == the dense slot operator, on an
+    operator skewed enough that chunking actually activates
+    (meta.n_ch > 0)."""
     rng = np.random.default_rng(5)
     K, free = _skewed_spd(rng)
     n_n = K.shape[0] // 2
@@ -774,8 +815,8 @@ def test_ragged_slot_matches_dense():
 
 def test_ragged_slot_df_f64_grade():
     """Ragged double-float slot matvec keeps ~1e-14 relative accuracy:
-    chunk partials are combined with the same compensated two-sum chain
-    as the dense kernel's running renormalization."""
+    chunk partials are folded with the same compensated double-float
+    reduction as the slots inside a chunk."""
     rng = np.random.default_rng(6)
     K, _ = _skewed_spd(rng)
     K64 = K.astype(np.float64)
@@ -797,7 +838,7 @@ def test_ragged_slot_df_f64_grade():
 def test_ragged_falls_back_dense_when_uniform():
     """Uniform operators skip ragged chunking (saves <15%): build_sparse
     fmt="rslot" then returns the dense layout (meta.n_ch == 0) and the
-    dense kernels serve it."""
+    dense application serves it."""
     import scipy.sparse as sp
 
     rng = np.random.default_rng(7)

@@ -268,7 +268,7 @@ class TestHigherOrder:
     def test_p4_runs(self):
         # truncated schedule (2 load steps) keeps the default CPU run fast;
         # the full P4 schedule runs in test_p4_full_schedule (slow, gated)
-        # and in benchmarks/p4_tsx_bench.py on TPU
+        # and in benchmarks/p4_tsx_bench.py on the GPU
         r = solve(
             TsxTunnelConfig(etype=ElementType.P4, solver="cg", zeta_max=2 / 17)
         )
@@ -302,7 +302,7 @@ class TestHigherOrder:
         # block-Jacobi cg path.  One load step (this ran 1017 s at 2/17 in
         # round 3 — the schedule is elastic until step 14 either way, so
         # the equivalence check loses nothing; plastic p-MG coverage is
-        # the FEM_TPU_SLOW full schedule + benchmarks/p4_tsx_bench.py)
+        # the FEM_SLOW full schedule + benchmarks/p4_tsx_bench.py)
         kw = dict(etype=ElementType.P4, zeta_max=1 / 17)
         r0 = solve(TsxTunnelConfig.fast(solver="cg", **kw))
         r1 = solve(TsxTunnelConfig.fast(solver="ell", **kw))
@@ -322,7 +322,7 @@ class TestHigherOrder:
         """gs_tangent (solve/newton.py): the tangent CG operator applied
         as S(d * (G v)) on the f32 heads of the assembled strain/force
         slot operators reproduces the matrix-free trajectory (the
-        high-order fast-operator path, VERDICT r2 #9)."""
+        high-order fast-operator path)."""
         kw = dict(etype=ElementType.P2, solver="ell", zeta_max=2 / 17)
         r0 = solve(TsxTunnelConfig.fast(gs_tangent=False, **kw))
         r1 = solve(TsxTunnelConfig.fast(gs_tangent=True, **kw))
@@ -355,8 +355,8 @@ class TestHigherOrder:
         assert abs(u40) < 1.979e-03  # less closure than unsupported
 
     @pytest.mark.skipif(
-        "FEM_TPU_SLOW" not in __import__("os").environ,
-        reason="~6.5 min on CPU; set FEM_TPU_SLOW=1 (runs on TPU via "
+        "FEM_SLOW" not in __import__("os").environ,
+        reason="~6.5 min on CPU; set FEM_SLOW=1 (runs on the GPU via "
         "benchmarks/p4_tsx_bench.py)",
     )
     def test_p4_full_schedule(self):
